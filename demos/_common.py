@@ -10,8 +10,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from csgrenderer_tpu.app import App, StatsClock
-from csgrenderer_tpu.io import image
+from csgrenderer.app import App, StatsClock
+from csgrenderer.io import image
 
 
 def demo_argparser(description: str, **defaults) -> argparse.ArgumentParser:
@@ -28,10 +28,14 @@ def demo_argparser(description: str, **defaults) -> argparse.ArgumentParser:
 
 
 def maybe_force_cpu(args) -> None:
+    """Apply --cpu, then point JAX's compile cache at its fixed place."""
+    from csgrenderer.utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
 
 def png_sink(out_dir: str, prefix: str):

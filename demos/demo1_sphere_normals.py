@@ -1,6 +1,6 @@
 """Config 1: milestone-01 — animated normal-shaded sphere on a sky gradient.
 
-The TPU re-expression of the reference demo (``src/wololo_demo/main.c`` +
+The JAX re-expression of the reference demo (``src/wololo_demo/main.c`` +
 ``ubershader1.frag``): same scene-graph build, same hard-coded shader scene,
 1280x720 "Test 1" semantics, headless frames to PNG.
 
@@ -16,9 +16,9 @@ def main():
     ).parse_args()
     maybe_force_cpu(args)
 
-    from csgrenderer_tpu.app import WololoRenderer
-    from csgrenderer_tpu.models import milestone01_scene_graph
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app import WololoRenderer
+    from csgrenderer.models import milestone01_scene_graph
+    from csgrenderer.utils.config import RenderConfig
 
     # The scene-graph side of the reference demo (main.c:40-50): build the
     # union and print the root flags the demo prints.

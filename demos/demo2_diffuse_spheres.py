@@ -12,10 +12,10 @@ def main():
     ).parse_args()
     maybe_force_cpu(args)
 
-    from csgrenderer_tpu.app import PathTraceRenderer
-    from csgrenderer_tpu.camera import Camera
-    from csgrenderer_tpu.models import two_spheres_scene
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app import PathTraceRenderer
+    from csgrenderer.camera import Camera
+    from csgrenderer.models import two_spheres_scene
+    from csgrenderer.utils.config import RenderConfig
 
     camera = Camera.look_at(
         (0, 0, 0), (0, 0, -1),

@@ -17,13 +17,13 @@ def main():
     args = ap.parse_args()
     maybe_force_cpu(args)
 
-    from csgrenderer_tpu.app import PathTraceRenderer
-    from csgrenderer_tpu.camera import Camera
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app import PathTraceRenderer
+    from csgrenderer.camera import Camera
+    from csgrenderer.utils.config import RenderConfig
 
     if args.native:
-        from csgrenderer_tpu.scene.native import NativeSceneGraph
-        from csgrenderer_tpu.scene import Material, NodeArgument
+        from csgrenderer.scene.native import NativeSceneGraph
+        from csgrenderer.scene import Material, NodeArgument
 
         g = NativeSceneGraph(max_node_count=16)
         s = g.add_sphere_node(1.0, Material.lambertian((0.75, 0.25, 0.25)))
@@ -36,7 +36,7 @@ def main():
         root = g.add_difference_of_node(NodeArgument(u), NodeArgument(c))
         tape = g.compile(root)
     else:
-        from csgrenderer_tpu.models import config3_csg_scene
+        from csgrenderer.models import config3_csg_scene
 
         tape = config3_csg_scene().compile()
 

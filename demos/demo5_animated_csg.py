@@ -33,11 +33,11 @@ def main():
 
     import numpy as np
 
-    from csgrenderer_tpu.app import PathTraceRenderer
-    from csgrenderer_tpu.camera import Camera
-    from csgrenderer_tpu.io import checkpoint
-    from csgrenderer_tpu.models import animated_csg_scene
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app import PathTraceRenderer
+    from csgrenderer.camera import Camera
+    from csgrenderer.io import checkpoint
+    from csgrenderer.models import animated_csg_scene
+    from csgrenderer.utils.config import RenderConfig
 
     graph, animate = animated_csg_scene(n_levels=8)
     tape = graph.compile()

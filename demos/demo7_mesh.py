@@ -2,7 +2,7 @@
 
 The reference scopes itself to CSG "with meshes later" (README.md:1-13);
 this demo path-traces a triangle-mesh scene (subdivided icospheres + floor
-quad, ~1000 faces) through the fused Pallas mesh kernel.
+quad, ~1000 faces) through the plain XLA path (MeshScene.nearest_hit).
 
 Run: python demos/demo7_mesh.py --out /tmp/mesh.png
      python demos/demo7_mesh.py --obj model.obj   (render your own mesh)
@@ -19,11 +19,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.io import image as image_io
-from csgrenderer_tpu.render import tonemap
-from csgrenderer_tpu.render.trimesh import concat_meshes, icosphere, quad
-from csgrenderer_tpu.scene import Material
+from csgrenderer.camera import Camera
+from csgrenderer.io import image as image_io
+from csgrenderer.render import tonemap
+from csgrenderer.render.trimesh import concat_meshes, icosphere, quad
+from csgrenderer.scene import Material
 
 
 def build_scene(subdiv: int = 2, spheres: int = 3):
@@ -58,25 +58,20 @@ def main(argv=None):
     ap.add_argument("--bounces", type=int, default=6)
     ap.add_argument("--out", default="/tmp/csgr_demo7_mesh.png")
     ap.add_argument("--obj", default=None, help="render an OBJ file instead")
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "pallas", "jnp"])
     ap.add_argument("--subdiv", type=int, default=2,
                     help="icosphere subdivision (2 -> 962 faces, "
-                    "3 -> 3842, 4 -> 15362; brute force OOMs past ~2000, "
-                    "the voxel worklists + paged dense map keep going)")
-    ap.add_argument("--worklist", default="auto", choices=["auto", "off"],
-                    help="per-voxel triangle worklists (auto) or brute")
+                    "3 -> 3842, 4 -> 15362)")
     ap.add_argument("--nee", action="store_true",
                     help="night variant: emissive quad lamps + black sky,"
                     " area-sampled TriLights NEE with MIS (round 3b)")
     args = ap.parse_args(argv)
 
     if args.obj:
-        from csgrenderer_tpu.io.obj import load_mesh
+        from csgrenderer.io.obj import load_mesh
 
         mesh = load_mesh(args.obj, Material.lambertian((0.6, 0.6, 0.6)))
     elif args.nee:
-        from csgrenderer_tpu.models import mesh_night_scene
+        from csgrenderer.models import mesh_night_scene
 
         mesh = mesh_night_scene(args.subdiv)
     else:
@@ -86,37 +81,26 @@ def main(argv=None):
                          vfov_degrees=45.0,
                          aspect_ratio=args.width / args.height)
 
-    import jax
+    from csgrenderer.render import render_image
+    from csgrenderer.utils.compile_cache import enable_compile_cache
 
-    backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform != "cpu" else "jnp"
+    enable_compile_cache()
     t0 = time.perf_counter()
-    if backend == "pallas":
-        from csgrenderer_tpu.kernels import render_image_mesh_pallas
+    lights = None
+    if args.nee:
+        from csgrenderer.render.lights import extract_mesh_lights
 
-        img, rays = render_image_mesh_pallas(
-            mesh, cam, args.width, args.height, spp=args.spp,
-            max_bounces=args.bounces, seed=7, sky=sky, nee=args.nee,
-            worklist=False if args.worklist == "off" else "auto")
-    else:
-        from csgrenderer_tpu.render import render_image
-
-        lights = None
-        if args.nee:
-            from csgrenderer_tpu.render.lights import extract_mesh_lights
-
-            lights = extract_mesh_lights(mesh)
-        img, rays = render_image(
-            mesh.nearest_hit, cam, args.width, args.height, spp=args.spp,
-            max_bounces=args.bounces, seed=7, sky=sky, lights=lights)
+        lights = extract_mesh_lights(mesh)
+    img, rays = render_image(
+        mesh.nearest_hit, cam, args.width, args.height, spp=args.spp,
+        max_bounces=args.bounces, seed=7, sky=sky, lights=lights)
     r = int(rays)
     dt = time.perf_counter() - t0
     out = tonemap.to_uint8(tonemap.tonemap(img, gamma=2.0))
     image_io.write_png(args.out, np.asarray(out))
     print(
         f"[csgr] demo7: {mesh.num_faces} triangles, {args.width}x{args.height}"
-        f" spp={args.spp} via {backend}: {r/dt/1e6:.1f} Mrays/s"
+        f" spp={args.spp}: {r/dt/1e6:.1f} Mrays/s"
         f" (incl. compile) -> {args.out}"
     )
     return 0

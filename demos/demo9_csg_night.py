@@ -21,10 +21,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.io import image as image_io
-from csgrenderer_tpu.models import csg_night_scene
-from csgrenderer_tpu.render import tonemap
+from csgrenderer.camera import Camera
+from csgrenderer.io import image as image_io
+from csgrenderer.models import csg_night_scene
+from csgrenderer.render import tonemap
 
 
 def main(argv=None):
@@ -38,7 +38,7 @@ def main(argv=None):
                     action=argparse.BooleanOptionalAction,
                     help="next-event estimation (--no-nee = plain PT)")
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "pallas", "jnp"])
+                    choices=["auto", "triton", "jnp"])
     args = ap.parse_args(argv)
 
     tape = csg_night_scene().compile(k=4)
@@ -47,14 +47,14 @@ def main(argv=None):
         vfov_degrees=38.0, aspect_ratio=args.width / args.height,
     )
 
-    import jax
+    from csgrenderer.backend import choose_backend
+    from csgrenderer.utils.compile_cache import enable_compile_cache
 
-    backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform != "cpu" else "jnp"
+    enable_compile_cache()
+    backend = choose_backend(tape, args.backend)
     t0 = time.perf_counter()
-    if backend == "pallas":
-        from csgrenderer_tpu.kernels import render_image_tape_pallas
+    if backend == "triton":
+        from csgrenderer.kernels import render_image_tape_pallas
 
         img, rays = render_image_tape_pallas(
             tape, cam, args.width, args.height, spp=args.spp,
@@ -63,9 +63,9 @@ def main(argv=None):
     else:
         from functools import partial
 
-        from csgrenderer_tpu.render import render_image
-        from csgrenderer_tpu.render.integrator import tape_hit_adapter
-        from csgrenderer_tpu.render.lights import extract_tape_lights
+        from csgrenderer.render import render_image
+        from csgrenderer.render.integrator import tape_hit_adapter
+        from csgrenderer.render.lights import extract_tape_lights
 
         img, rays = render_image(
             partial(tape_hit_adapter, tape), cam, args.width, args.height,

@@ -1,12 +1,12 @@
 // scene_core: native CSG scene-graph arena + tape compiler (C ABI).
 //
-// The TPU-native counterpart of the reference's native scene component
+// This framework's counterpart of the reference's native scene component
 // (renderer.c:176-202, 2220-2313): parallel node tables in one arena, a
 // non-root bitset, and — the part the reference never built — a postfix-tape
 // compiler with root-to-leaf transform composition done in double precision.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
-// (csgrenderer_tpu/scene/native.py). The Python SceneGraph is the behavioral
+// (csgrenderer/scene/native.py). The Python SceneGraph is the behavioral
 // spec; tests assert tape-for-tape parity between the two implementations.
 //
 // Build: make -C native   (produces libcsgr_scene.so)
@@ -189,75 +189,6 @@ void walk(const Scene* s, CompiledProgram* p, int32_t node, Quat q_acc,
 }  // namespace
 
 extern "C" {
-
-// Exact SAT triangle-AABB overlap over (triangle, box) PAIRS — the
-// native twin of kernels/tri_worklist._tri_box_overlap_pairs (same
-// 13-axis test, same 1e-12 epsilons, same expression order; build with
-// -ffp-contract=off so results stay bit-identical to numpy's
-// non-contracted f64 arithmetic). The mesh packer's binning hot loop:
-// a scalar early-exit pass beats numpy's ~40 whole-array passes.
-// out[i] = 1 if triangle i overlaps the half-extent `half` box at
-// centers[i], else 0.
-void csgr_tri_box_overlap_pairs(const double* v0, const double* v1,
-                                const double* v2, const double* centers,
-                                double half, int64_t n,
-                                unsigned char* out) {
-  const double eps = 1e-12;
-  for (int64_t i = 0; i < n; ++i) {
-    const double* a = v0 + 3 * i;
-    const double* b = v1 + 3 * i;
-    const double* c = v2 + 3 * i;
-    const double* ctr = centers + 3 * i;
-    double p0[3], p1[3], p2[3];
-    for (int j = 0; j < 3; ++j) {
-      p0[j] = a[j] - ctr[j];
-      p1[j] = b[j] - ctr[j];
-      p2[j] = c[j] - ctr[j];
-    }
-    bool ok = true;
-    // box-axis interval tests
-    for (int j = 0; j < 3 && ok; ++j) {
-      double lo = std::min(std::min(p0[j], p1[j]), p2[j]);
-      double hi = std::max(std::max(p0[j], p1[j]), p2[j]);
-      ok = (lo <= half) && (hi >= -half);
-    }
-    // triangle plane vs box
-    double e0[3], e1v[3], e2v[3];
-    for (int j = 0; j < 3; ++j) {
-      e0[j] = b[j] - a[j];
-      e1v[j] = c[j] - b[j];
-      e2v[j] = a[j] - c[j];
-    }
-    if (ok) {
-      double nrm[3] = {e0[1] * e1v[2] - e0[2] * e1v[1],
-                       e0[2] * e1v[0] - e0[0] * e1v[2],
-                       e0[0] * e1v[1] - e0[1] * e1v[0]};
-      double r = half * (std::abs(nrm[0]) + std::abs(nrm[1]) +
-                         std::abs(nrm[2]));
-      double s = p0[0] * nrm[0] + p0[1] * nrm[1] + p0[2] * nrm[2];
-      ok = std::abs(s) <= r + eps;
-    }
-    // 9 edge-cross axes: ax[(j+1)%3] = -e[(j+2)%3], ax[(j+2)%3] = e[(j+1)%3]
-    const double* edges[3] = {e0, e1v, e2v};
-    for (int ei = 0; ei < 3 && ok; ++ei) {
-      const double* e = edges[ei];
-      for (int j = 0; j < 3 && ok; ++j) {
-        double ax[3] = {0.0, 0.0, 0.0};
-        ax[(j + 1) % 3] = -e[(j + 2) % 3];
-        ax[(j + 2) % 3] = e[(j + 1) % 3];
-        double ra = half * (std::abs(ax[0]) + std::abs(ax[1]) +
-                            std::abs(ax[2]));
-        double q0 = p0[0] * ax[0] + p0[1] * ax[1] + p0[2] * ax[2];
-        double q1 = p1[0] * ax[0] + p1[1] * ax[1] + p1[2] * ax[2];
-        double q2 = p2[0] * ax[0] + p2[1] * ax[1] + p2[2] * ax[2];
-        double lo = std::min(std::min(q0, q1), q2);
-        double hi = std::max(std::max(q0, q1), q2);
-        ok = (lo <= ra + eps) && (hi >= -ra - eps);
-      }
-    }
-    out[i] = ok ? 1 : 0;
-  }
-}
 
 void* csgr_scene_new(int64_t max_nodes) {
   auto* s = new Scene();

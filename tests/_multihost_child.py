@@ -22,7 +22,7 @@ jax.config.update("jax_platforms", "cpu")
 def main() -> int:
     pid, port = int(sys.argv[1]), sys.argv[2]
 
-    from csgrenderer_tpu.parallel import initialize_multihost, make_mesh
+    from csgrenderer.parallel import initialize_multihost, make_mesh
 
     initialize_multihost(
         coordinator_address=f"127.0.0.1:{port}",
@@ -34,9 +34,9 @@ def main() -> int:
 
     import numpy as np
 
-    from csgrenderer_tpu.camera import Camera
-    from csgrenderer_tpu.models import two_spheres_scene
-    from csgrenderer_tpu.parallel import render_scene_sharded
+    from csgrenderer.camera import Camera
+    from csgrenderer.models import two_spheres_scene
+    from csgrenderer.parallel import render_scene_sharded
 
     scene = two_spheres_scene()
     cam = Camera.look_at(

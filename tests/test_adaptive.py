@@ -4,10 +4,10 @@ render-to-quality certificate extended from the offline path
 
 import numpy as np
 
-from csgrenderer_tpu.app import AdaptiveSppRenderer, next_pow2_spp
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import two_spheres_scene
-from csgrenderer_tpu.utils.config import RenderConfig
+from csgrenderer.app import AdaptiveSppRenderer, next_pow2_spp
+from csgrenderer.camera import Camera
+from csgrenderer.models import two_spheres_scene
+from csgrenderer.utils.config import RenderConfig
 
 
 def test_ladder_logic():

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from csgrenderer_tpu.app import App, PathTraceRenderer, StatsClock, WololoRenderer
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import two_spheres_scene
-from csgrenderer_tpu.utils.config import RenderConfig
+from csgrenderer.app import App, PathTraceRenderer, StatsClock, WololoRenderer
+from csgrenderer.camera import Camera
+from csgrenderer.models import two_spheres_scene
+from csgrenderer.utils.config import RenderConfig
 
 
 def run_app(renderer, frames=2, ups=30.0):
@@ -66,14 +66,14 @@ def test_progressive_renderer_accumulates_through_app():
 
 
 def test_path_trace_renderer_pallas_backend_interpret():
-    # regression: the pallas frame path must NOT be wrapped in an outer jit
+    # regression: the kernel frame path must NOT be wrapped in an outer jit
     # (scene packing needs concrete arrays); exercised via interpret mode
     cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90,
                          aspect_ratio=2.0)
     r = PathTraceRenderer(
         two_spheres_scene(), cam,
         RenderConfig(width=64, height=32, spp=1, max_bounces=2, seed=1),
-        backend="pallas", interpret=True, progressive=True,
+        backend="triton", interpret=True, progressive=True,
     )
     f1 = np.asarray(r.draw_frame(0.0))
     f2 = np.asarray(r.draw_frame(0.0))
@@ -85,8 +85,8 @@ def test_path_trace_renderer_pallas_backend_interpret():
 def test_mesh_renderer_through_app_loop():
     """MeshScene drives PathTraceRenderer + App + progressive accumulation
     like any other scene type (VERDICT r2 item 1)."""
-    from csgrenderer_tpu.render import icosphere
-    from csgrenderer_tpu.scene.graph import Material
+    from csgrenderer.render import icosphere
+    from csgrenderer.scene.graph import Material
 
     mesh = icosphere((0, 0, -4), 1.0, Material.lambertian((0.6, 0.3, 0.3)), 1)
     cam = Camera.look_at((0, 0, 0), (0, 0, -4), vfov_degrees=45,
@@ -100,12 +100,14 @@ def test_mesh_renderer_through_app_loop():
     assert len(frames) == 2 and r.last_frame_rays > 0
     np.testing.assert_array_equal(frames[0], frames[1])
 
-    # pallas backend (interpret) + progressive accumulation
+    # meshes have no kernel: interpret=True still takes the XLA path,
+    # here with progressive accumulation
     rp = PathTraceRenderer(
         mesh, cam,
         RenderConfig(width=64, height=32, spp=1, max_bounces=3, seed=1),
-        backend="pallas", interpret=True, progressive=True,
+        interpret=True, progressive=True,
     )
+    assert rp.backend == "jnp"
     f1 = np.asarray(rp.draw_frame(0.0))
     _ = rp.draw_frame(0.0)
     assert f1.shape == (32, 64, 3)
@@ -119,7 +121,7 @@ def test_render_to_noise_exactness_and_stop():
     sample_offsets compose exactly under the counter-based RNG), the
     loop must stop once the measured noise reaches the target, and the
     renderer's progressive state must advance past the consumed range."""
-    from csgrenderer_tpu.render import integrator
+    from csgrenderer.render import integrator
 
     scene = two_spheres_scene()
     cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90.0,

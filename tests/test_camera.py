@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.camera import Camera, WololoCamera, pixel_st_grid
-from csgrenderer_tpu.math import vec
+from csgrenderer.camera import Camera, WololoCamera, pixel_st_grid
+from csgrenderer.math import vec
 
 
 def test_pixel_st_grid_yflip_and_centers():

@@ -1,10 +1,10 @@
-"""CLI smoke tests (python -m csgrenderer_tpu)."""
+"""CLI smoke tests (python -m csgrenderer)."""
 
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.__main__ import main
-from csgrenderer_tpu.io import image
+from csgrenderer.__main__ import main
+from csgrenderer.io import image
 
 
 def test_render_milestone01(tmp_path, capsys):

@@ -6,13 +6,13 @@ import math
 
 import numpy as np
 
-from csgrenderer_tpu.app.controls import OrbitController, attach
-from csgrenderer_tpu.app.loop import App
-from csgrenderer_tpu.app.preview import PreviewServer
-from csgrenderer_tpu.app.renderers import PathTraceRenderer
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.render.integrator import SphereScene
-from csgrenderer_tpu.utils.config import RenderConfig
+from csgrenderer.app.controls import OrbitController, attach
+from csgrenderer.app.loop import App
+from csgrenderer.app.preview import PreviewServer
+from csgrenderer.app.renderers import PathTraceRenderer
+from csgrenderer.camera import Camera
+from csgrenderer.render.integrator import SphereScene
+from csgrenderer.utils.config import RenderConfig
 
 
 def _tiny_scene():

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import two_spheres_scene
-from csgrenderer_tpu.render import (
+from csgrenderer.camera import Camera
+from csgrenderer.models import two_spheres_scene
+from csgrenderer.render import (
     AOVs,
     atrous_denoise,
     denoise_frame,
@@ -162,8 +162,8 @@ def test_aov_row_chunking_matches_unchunked(diffuse_setup):
 
 
 def test_mesh_face_chunking_matches_unchunked():
-    from csgrenderer_tpu.render.trimesh import icosphere
-    from csgrenderer_tpu.scene.graph import Material
+    from csgrenderer.render.trimesh import icosphere
+    from csgrenderer.scene.graph import Material
 
     mesh = icosphere((0, 0, -2), 0.8, Material.lambertian((0.6, 0.3, 0.2)),
                      subdivisions=2)  # 320 faces
@@ -183,8 +183,8 @@ def test_mesh_face_chunking_matches_unchunked():
 def test_renderer_denoise_wiring_improves_rmse(diffuse_setup):
     """PathTraceRenderer(denoise=True) beats the raw frame against a
     converged reference — the full production wiring, not the bare filter."""
-    from csgrenderer_tpu.app.renderers import PathTraceRenderer
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import PathTraceRenderer
+    from csgrenderer.utils.config import RenderConfig
 
     scene, camera = diffuse_setup
     base = dict(width=W, height=H, spp=2, max_bounces=4, seed=0)
@@ -211,9 +211,9 @@ def test_renderer_denoise_wiring_improves_rmse(diffuse_setup):
 def test_renderer_denoise_animated_tape():
     """Animated CompiledTape scenes denoise against the FRAME-TIME
     geometry (the AOV step re-applies `animate` inside jit)."""
-    from csgrenderer_tpu.app.renderers import PathTraceRenderer
-    from csgrenderer_tpu.models import animated_csg_scene
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import PathTraceRenderer
+    from csgrenderer.models import animated_csg_scene
+    from csgrenderer.utils.config import RenderConfig
 
     graph, animate = animated_csg_scene(3)
     cam = Camera.look_at(

@@ -5,11 +5,11 @@ defeated with a per-frame vkQueueWaitIdle — renderer.c:51, 2212)."""
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.app.loop import App
-from csgrenderer_tpu.app.renderers import PathTraceRenderer
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import two_spheres_scene
-from csgrenderer_tpu.utils.config import RenderConfig
+from csgrenderer.app.loop import App
+from csgrenderer.app.renderers import PathTraceRenderer
+from csgrenderer.camera import Camera
+from csgrenderer.models import two_spheres_scene
+from csgrenderer.utils.config import RenderConfig
 
 
 class RecordingRenderer:

@@ -15,7 +15,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools")
 
 from make_goldens import GOLDEN_DIR, golden_specs  # noqa: E402
 
-from csgrenderer_tpu.io import image  # noqa: E402
+from csgrenderer.io import image  # noqa: E402
 
 SPECS = golden_specs()
 

@@ -5,9 +5,9 @@ shell + inner negative sphere into a thin bubble."""
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.kernels import render_image_pallas
-from csgrenderer_tpu.render.integrator import SphereScene, render_image
+from csgrenderer.camera import Camera
+from csgrenderer.kernels import render_image_pallas
+from csgrenderer.render.integrator import SphereScene, render_image
 
 
 def _scene(inner_radius):
@@ -96,7 +96,7 @@ def test_grid_worklist_path_with_negative_radius():
     params[n + 2] = 1.5
     scene = SphereScene(*map(jnp.asarray, (centers, radii, kinds, albedo, params)))
 
-    from csgrenderer_tpu.kernels.worklist import pack_grid
+    from csgrenderer.kernels.worklist import pack_grid
 
     assert pack_grid(scene) is not None  # the grid path really engages
     cam = Camera.look_at((3, 2, 3), (0.45, 0.2, 0.45), vfov_degrees=35.0,
@@ -106,7 +106,6 @@ def test_grid_worklist_path_with_negative_radius():
     )
     img, _ = render_image_pallas(
         scene, cam, 64, 32, spp=2, max_bounces=6, seed=4, interpret=True,
-        worklist=True,
     )
     rmse = float(np.sqrt(np.mean((np.asarray(ref) - np.asarray(img)) ** 2)))
     assert rmse <= 2e-2, rmse

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import rtiow_final_scene, two_spheres_scene
-from csgrenderer_tpu.render import render_image, sky_color
-from csgrenderer_tpu.render.integrator import SphereScene, render_wololo_frame
+from csgrenderer.camera import Camera
+from csgrenderer.models import rtiow_final_scene, two_spheres_scene
+from csgrenderer.render import render_image, sky_color
+from csgrenderer.render.integrator import SphereScene, render_wololo_frame
 
 
 def test_sky_modes():

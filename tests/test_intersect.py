@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.render import intersect
-from csgrenderer_tpu.render.intersect import T_FAR
+from csgrenderer.render import intersect
+from csgrenderer.render.intersect import T_FAR
 
 
 def test_hit_sphere_ref_head_on():

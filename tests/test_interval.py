@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.render import interval
-from csgrenderer_tpu.render.intersect import T_FAR
+from csgrenderer.render import interval
+from csgrenderer.render.intersect import T_FAR
 
 K = 4
 

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.render import interval
-from csgrenderer_tpu.render.intersect import T_FAR
+from csgrenderer.render import interval
+from csgrenderer.render.intersect import T_FAR
 
 # K chosen so no test case can exceed the cap (union of 4+4 <= 8;
 # nested test uses max_n=2 so (A u B) \ C <= 6) - truncation is tested

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from csgrenderer_tpu.app import App, FrameStats, StatsClock
-from csgrenderer_tpu.io import Accumulator, checkpoint, image
+from csgrenderer.app import App, FrameStats, StatsClock
+from csgrenderer.io import Accumulator, checkpoint, image
 
 
 def test_png_roundtrip(tmp_path):
@@ -143,8 +143,8 @@ def test_accumulator_ray_counter_survives_int32_overflow(tmp_path):
 def test_debug_view_1_entry_point():
     """ep_debug_view_1 parity (ubershader1.frag:132-137): color=(st.x,st.y,0),
     selectable as a constructor arg instead of a shader edit."""
-    from csgrenderer_tpu.app.renderers import WololoRenderer
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import WololoRenderer
+    from csgrenderer.utils.config import RenderConfig
 
     r = WololoRenderer(
         RenderConfig(width=64, height=32, spp=1, sky="wololo"),

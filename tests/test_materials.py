@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.math import vec
-from csgrenderer_tpu.render import materials
-from csgrenderer_tpu.render.sampling import uniform4
+from csgrenderer.math import vec
+from csgrenderer.render import materials
+from csgrenderer.render.sampling import uniform4
 
 
 def mk(kind, albedo=(0.5, 0.5, 0.5), param=0.0, d=(0, 0, -1), n=(0, 0, 1),

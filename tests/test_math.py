@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.math import quaternion as quat
-from csgrenderer_tpu.math import vec
+from csgrenderer.math import quaternion as quat
+from csgrenderer.math import vec
 
 
 def test_vec3_build_and_dot():

@@ -10,9 +10,9 @@ pytestmark = pytest.mark.skipif(
     reason="no C++ toolchain",
 )
 
-from csgrenderer_tpu.math import quaternion as quat  # noqa: E402
-from csgrenderer_tpu.scene import Material, NodeArgument, SceneGraph  # noqa: E402
-from csgrenderer_tpu.scene.native import NativeSceneGraph  # noqa: E402
+from csgrenderer.math import quaternion as quat  # noqa: E402
+from csgrenderer.scene import Material, NodeArgument, SceneGraph  # noqa: E402
+from csgrenderer.scene.native import NativeSceneGraph  # noqa: E402
 
 
 def build_both(builder):
@@ -99,7 +99,7 @@ def test_bad_child_rejected():
 def test_native_tape_renders_identically():
     import jax.numpy as jnp
 
-    from csgrenderer_tpu.render.tape_eval import tape_nearest_hit
+    from csgrenderer.render.tape_eval import tape_nearest_hit
 
     def build(g):
         s = g.add_sphere_node(1.0, Material.lambertian((0.7, 0.3, 0.3)))

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.kernels import render_image_pallas
-from csgrenderer_tpu.models import night_scene
-from csgrenderer_tpu.render import render_image
-from csgrenderer_tpu.render.integrator import SphereScene
-from csgrenderer_tpu.render.lights import (
+from csgrenderer.camera import Camera
+from csgrenderer.kernels import render_image_pallas
+from csgrenderer.models import night_scene
+from csgrenderer.render import render_image
+from csgrenderer.render.integrator import SphereScene
+from csgrenderer.render.lights import (
     extract_lights,
     sample_sphere_cone,
     sphere_ray_t,
@@ -137,10 +137,9 @@ def test_night_scene_kernel_runs():
 
 def test_grid_nee_shadow_segments_match_jnp():
     """NEE through the grid-worklist path (shadow segments woven into the
-    fused-DDA wavefront, common.grid_wavefront) against the jnp reference:
-    same estimator, same RNG counters; the bf16 worklist tables allow only
-    silhouette-level drift."""
-    from csgrenderer_tpu.kernels.worklist import pack_grid
+    wavefront loop, common.wavefront) against the jnp reference: same
+    estimator, same RNG counters; only silhouette-level drift."""
+    from csgrenderer.kernels.worklist import pack_grid
 
     scene = night_scene()  # full scene: griddable (148 spheres)
     assert pack_grid(scene) is not None  # the test must hit the grid path
@@ -154,16 +153,15 @@ def test_grid_nee_shadow_segments_match_jnp():
     )
     img_k, rays_k = render_image_pallas(
         scene, cam, 40, 40, spp=6, max_bounces=4, seed=2, sky="black",
-        nee=True, interpret=True, worklist=True,  # force the grid path
+        nee=True, interpret=True,
     )
     j, k = np.asarray(img_j), np.asarray(img_k)
     # shadow segments are not counted as path segments: counters match
     assert abs(int(rays_j) - int(rays_k)) <= max(4, int(rays_j) * 1e-3)
     # the glossy-MIS metal lobe's pdf has an integrable 1/g singularity at
-    # its cone edge, so the bf16 worklist tables' ~2e-4 geometry drift can
-    # flip a single near-edge light sample per image (measured: one moving
-    # outlier pixel per seed, means agreeing to ~2e-4) — assert on the
-    # divergent-pixel fraction + mean instead of a global rmse
+    # its cone edge, so ulp-level geometry drift can flip a single
+    # near-edge light sample per image: assert on the divergent-pixel
+    # fraction + mean instead of a global rmse
     bad = (np.abs(k - j).max(axis=-1) > 0.05).mean()
     assert bad <= 2e-3, f"{bad:.4%} divergent"
     assert abs(float(k.mean()) - float(j.mean())) < 1e-3
@@ -176,7 +174,7 @@ def test_sharded_nee_matches_single_device():
     import jax
     from jax.sharding import Mesh
 
-    from csgrenderer_tpu.parallel import render_scene_sharded
+    from csgrenderer.parallel import render_scene_sharded
 
     scene = small_scene()
     single, rays1 = render_image_pallas(
@@ -187,7 +185,7 @@ def test_sharded_nee_matches_single_device():
     mesh = Mesh(devs, ("tile", "sample"))
     sharded, rays8 = render_scene_sharded(
         scene, CAM, 32, 32, mesh, spp=4, max_bounces=4, seed=3,
-        sky="black", nee=True, backend="pallas", interpret=True,
+        sky="black", nee=True, backend="triton", interpret=True,
     )
     # ulp-level only: the sharded path re-groups the spp division through
     # the psum (radiance * spp_local -> psum -> / spp)
@@ -199,21 +197,21 @@ def test_sharded_nee_matches_single_device():
 
 def test_renderer_nee_config():
     """RenderConfig.nee drives both App-renderer backends."""
-    from csgrenderer_tpu.app.renderers import PathTraceRenderer
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import PathTraceRenderer
+    from csgrenderer.utils.config import RenderConfig
 
     scene = small_scene()
     cfg = RenderConfig(width=24, height=24, spp=2, max_bounces=3,
                        sky="black", nee=True)
     imgs = {}
-    for backend in ("jnp", "pallas"):
+    for backend in ("jnp", "triton"):
         r = PathTraceRenderer(scene, CAM, cfg, backend=backend,
                               interpret=True)
         imgs[backend] = np.asarray(r.draw_frame(0.0))
     assert imgs["jnp"].max() > 0
     # same estimator, same RNG: tonemapped frames agree to uint8 rounding
     assert float(np.abs(imgs["jnp"].astype(np.int32)
-                        - imgs["pallas"].astype(np.int32)).max()) <= 1.0
+                        - imgs["triton"].astype(np.int32)).max()) <= 1.0
     # a scene with no emissives raises clearly
     no_em = scene._replace(mat_kind=jnp.asarray([1, 1, 1, 2], jnp.int32))
     with pytest.raises(ValueError):
@@ -224,7 +222,7 @@ def test_mis_weights_partition_unity():
     """Balance-heuristic property: for any direction the light-strategy
     weight folded into nee_contribution's scale and the BSDF-side weight
     from bsdf_mis_scale must sum to 1 (same pdf pair on both sides)."""
-    from csgrenderer_tpu.render.lights import bsdf_mis_scale
+    from csgrenderer.render.lights import bsdf_mis_scale
 
     rng = np.random.default_rng(3)
     lights = extract_lights(small_scene())
@@ -293,14 +291,14 @@ def test_grid_shadow_segment_occlusion_semantics():
         scene = scene_with(rb)
         img_k, _ = render_image_pallas(
             scene, cam, 32, 32, spp=8, max_bounces=3, seed=4, sky="black",
-            nee=True, interpret=True, worklist=True,
+            nee=True, interpret=True,
         )
         img_j, _ = render_image(
             scene.nearest_hit, cam, 32, 32, spp=8, max_bounces=3, seed=4,
             sky="black", lights=extract_lights(scene),
         )
         k, j = np.asarray(img_k), np.asarray(img_j)
-        # kernel == reference up to bf16-table silhouette drift
+        # kernel == reference up to silhouette drift
         assert float(np.sqrt(((k - j) ** 2).mean())) < 2e-3
         imgs[name] = k
     # the umbra under the blocker (image center) is much darker than open
@@ -314,7 +312,7 @@ def test_grid_shadow_segment_occlusion_semantics():
 def small_csg_night_tape(k: int = 4):
     """Compact emissive CSG scene (5 leaves — CPU-compile friendly):
     ground plane + (sphere ∖ box) solid + metal sphere + one lamp leaf."""
-    from csgrenderer_tpu.scene.graph import Material, NodeArgument as NA, SceneGraph
+    from csgrenderer.scene.graph import Material, NodeArgument as NA, SceneGraph
 
     g = SceneGraph(max_node_count=16)
     ground = g.add_infinite_planar_partition_node(
@@ -337,7 +335,7 @@ TAPE_CAM = Camera.look_at(
 
 
 def test_extract_tape_lights():
-    from csgrenderer_tpu.render.lights import extract_tape_lights
+    from csgrenderer.render.lights import extract_tape_lights
 
     tape = small_csg_night_tape()
     lights, ids = extract_tape_lights(tape, return_ids=True)
@@ -345,10 +343,10 @@ def test_extract_tape_lights():
     np.testing.assert_allclose(lights.centers, [[2.0, 2.5, -2.0]], atol=1e-6)
     np.testing.assert_allclose(lights.radii, [0.6])
     np.testing.assert_allclose(lights.emit, [[6.0, 5.5, 5.0]])
-    # the id indexes the LEAF table (the kernel reads lamp scalars there)
+    # the id indexes the LEAF table (the kernel packs lamps from there)
     assert tape.leaf_types[ids[0]] == 0  # sphere
     # no emissive sphere leaves -> None
-    from csgrenderer_tpu.models import config3_csg_scene
+    from csgrenderer.models import config3_csg_scene
 
     assert extract_tape_lights(config3_csg_scene().compile(k=2)) is None
 
@@ -358,9 +356,9 @@ def test_tape_kernel_nee_matches_jnp():
     the jnp reference (VERDICT r2 item 3)."""
     from functools import partial
 
-    from csgrenderer_tpu.kernels import render_image_tape_pallas
-    from csgrenderer_tpu.render.integrator import tape_hit_adapter
-    from csgrenderer_tpu.render.lights import extract_tape_lights
+    from csgrenderer.kernels import render_image_tape_pallas
+    from csgrenderer.render.integrator import tape_hit_adapter
+    from csgrenderer.render.lights import extract_tape_lights
 
     tape = small_csg_night_tape()
     lights = extract_tape_lights(tape)
@@ -384,8 +382,8 @@ def test_tape_nee_reduces_variance():
     lambertian-lit parts (the estimator's whole point)."""
     from functools import partial
 
-    from csgrenderer_tpu.render.integrator import tape_hit_adapter
-    from csgrenderer_tpu.render.lights import extract_tape_lights
+    from csgrenderer.render.integrator import tape_hit_adapter
+    from csgrenderer.render.lights import extract_tape_lights
 
     tape = small_csg_night_tape()
     lights = extract_tape_lights(tape)
@@ -409,8 +407,8 @@ def test_tape_nee_reduces_variance():
 
 
 def test_sharded_tape_nee_matches_single_device():
-    from csgrenderer_tpu.parallel import make_mesh, render_scene_sharded
-    from csgrenderer_tpu.kernels import render_image_tape_pallas
+    from csgrenderer.parallel import make_mesh, render_scene_sharded
+    from csgrenderer.kernels import render_image_tape_pallas
 
     tape = small_csg_night_tape()
     single, srays = render_image_tape_pallas(
@@ -420,7 +418,7 @@ def test_sharded_tape_nee_matches_single_device():
     mesh = make_mesh(2, 2, devices=jax.devices()[:4])
     img, rays = render_scene_sharded(
         tape, TAPE_CAM, 32, 16, mesh, spp=2, max_bounces=3, seed=7,
-        sky="black", backend="pallas", interpret=True, nee=True,
+        sky="black", backend="triton", interpret=True, nee=True,
     )
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(single), atol=1e-5
@@ -430,8 +428,8 @@ def test_sharded_tape_nee_matches_single_device():
 
 def test_tape_nee_renderer_config():
     """PathTraceRenderer accepts nee for CompiledTape on both backends."""
-    from csgrenderer_tpu.app import PathTraceRenderer
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app import PathTraceRenderer
+    from csgrenderer.utils.config import RenderConfig
 
     tape = small_csg_night_tape()
     cfg = RenderConfig(width=32, height=16, spp=1, max_bounces=3, seed=1,
@@ -439,12 +437,12 @@ def test_tape_nee_renderer_config():
     r = PathTraceRenderer(tape, TAPE_CAM, cfg, backend="jnp")
     f = np.asarray(r.draw_frame(0.0))
     assert f.shape == (16, 32, 3)
-    rp = PathTraceRenderer(tape, TAPE_CAM, cfg, backend="pallas",
+    rp = PathTraceRenderer(tape, TAPE_CAM, cfg, backend="triton",
                            interpret=True)
     fp = np.asarray(rp.draw_frame(0.0))
     assert fp.shape == (16, 32, 3)
     # no emissive leaves -> loud failure
-    from csgrenderer_tpu.models import config3_csg_scene
+    from csgrenderer.models import config3_csg_scene
 
     with pytest.raises(ValueError, match="emissive"):
         PathTraceRenderer(
@@ -458,7 +456,7 @@ def test_tape_nee_renderer_config():
 def test_scatter_pdf_metal_is_a_density():
     """The fuzzy-metal lobe pdf must (a) integrate to 1 over the sphere and
     (b) reproduce expectations of the actual scatter sampler."""
-    from csgrenderer_tpu.render.lights import scatter_pdf_metal
+    from csgrenderer.render.lights import scatter_pdf_metal
 
     rng = np.random.default_rng(0)
     n = np.array([0.0, 1.0, 0.0], np.float32)
@@ -490,17 +488,17 @@ def test_scatter_pdf_metal_is_a_density():
     ))
     assert float(z) == 0.0
     # plane twin agrees with the jnp version
-    from csgrenderer_tpu.kernels.common import scatter_pdf_metal_planes
+    from csgrenderer.kernels.common import scatter_pdf_metal_planes
 
     sub = u[:128].astype(np.float32)
     pj = np.asarray(scatter_pdf_metal(
         jnp.asarray(np.tile(d_in, (128, 1))),
         jnp.asarray(np.tile(n, (128, 1))), 0.7, jnp.asarray(sub)))
     pk = np.asarray(scatter_pdf_metal_planes(
-        tuple(jnp.full((1, 128), v) for v in d_in),
-        tuple(jnp.full((1, 128), v) for v in n),
+        tuple(jnp.full((128,), v) for v in d_in),
+        tuple(jnp.full((128,), v) for v in n),
         jnp.float32(0.7),
-        tuple(jnp.asarray(sub[:, i]).reshape(1, 128) for i in range(3)),
+        tuple(jnp.asarray(sub[:, i]) for i in range(3)),
     )).reshape(-1)
     np.testing.assert_allclose(pj, pk, rtol=1e-5, atol=1e-7)
 
@@ -509,7 +507,7 @@ def test_glossy_mis_weights_partition_unity():
     """w_L + w_B = 1 for the glossy pairing too: the light-side weight
     1/(1+q) inside nee_contribution's scale and bsdf_mis_scale's q/(q+1)
     use the same q = pdf_metal * L * ip."""
-    from csgrenderer_tpu.render.lights import (
+    from csgrenderer.render.lights import (
         bsdf_mis_scale, scatter_pdf_metal, sphere_ray_t as srt,
     )
 
@@ -590,8 +588,8 @@ def test_glossy_mis_unbiased_and_lower_variance():
 
 def small_mesh_night():
     """Emissive-quad lamp over lambertian/metal icospheres, black sky."""
-    from csgrenderer_tpu.render.trimesh import concat_meshes, icosphere, quad
-    from csgrenderer_tpu.scene import Material
+    from csgrenderer.render.trimesh import concat_meshes, icosphere, quad
+    from csgrenderer.scene import Material
 
     return concat_meshes(
         icosphere((-0.9, 0.7, -3.0), 0.7,
@@ -611,7 +609,7 @@ MESH_CAM = Camera.look_at(
 
 
 def test_extract_mesh_lights():
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
+    from csgrenderer.render.lights import extract_mesh_lights
 
     mesh = small_mesh_night()
     lights, ids = extract_mesh_lights(mesh, return_ids=True)
@@ -622,8 +620,8 @@ def test_extract_mesh_lights():
     np.testing.assert_allclose((n * n).sum(axis=1), 1.0, atol=1e-5)
     np.testing.assert_allclose(float(np.asarray(lights.area).sum()),
                                1.2 * 1.2, rtol=1e-5)
-    from csgrenderer_tpu.render.trimesh import icosphere
-    from csgrenderer_tpu.scene import Material
+    from csgrenderer.render.trimesh import icosphere
+    from csgrenderer.scene import Material
 
     none = extract_mesh_lights(
         icosphere((0, 0, -3), 1.0, Material.lambertian((0.5, 0.5, 0.5)), 1)
@@ -631,32 +629,9 @@ def test_extract_mesh_lights():
     assert none is None
 
 
-def test_mesh_kernel_nee_matches_jnp():
-    """The mesh kernel's NEE shares RNG counters and estimator math with
-    the jnp reference (round-3 mesh-citizenship follow-through)."""
-    from csgrenderer_tpu.kernels import render_image_mesh_pallas
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
-
-    mesh = small_mesh_night()
-    lights = extract_mesh_lights(mesh)
-    ref, rrays = render_image(
-        mesh.nearest_hit, MESH_CAM, 48, 24, spp=3, max_bounces=4, seed=7,
-        sky="black", lights=lights,
-    )
-    img, krays = render_image_mesh_pallas(
-        mesh, MESH_CAM, 48, 24, spp=3, max_bounces=4, seed=7, sky="black",
-        interpret=True, worklist=True, nee=True,
-    )
-    ref = np.asarray(ref)
-    img = np.asarray(img)
-    bad = (np.abs(img - ref).max(axis=-1) > 0.05).mean()
-    assert bad <= 0.01, f"{bad:.3%} divergent"
-    assert int(krays) == int(rrays)
-
-
 def test_mesh_nee_reduces_variance():
     """Equal-spp RMSE vs a converged reference must drop with NEE."""
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
+    from csgrenderer.render.lights import extract_mesh_lights
 
     mesh = small_mesh_night()
     lights = extract_mesh_lights(mesh)
@@ -680,18 +655,20 @@ def test_mesh_nee_reduces_variance():
 
 
 def test_sharded_mesh_nee_matches_single_device():
-    from csgrenderer_tpu.kernels import render_image_mesh_pallas
-    from csgrenderer_tpu.parallel import make_mesh, render_scene_sharded
+    """Sharded NEE on the plain XLA path (meshes have no kernel): the lamps
+    reach render_tile through render_image_sharded."""
+    from csgrenderer.parallel import make_mesh, render_scene_sharded
+    from csgrenderer.render.lights import extract_mesh_lights
 
     mesh = small_mesh_night()
-    single, srays = render_image_mesh_pallas(
-        mesh, MESH_CAM, 32, 16, spp=2, max_bounces=3, seed=7, sky="black",
-        interpret=True, worklist=True, nee=True,
+    single, srays = render_image(
+        mesh.nearest_hit, MESH_CAM, 32, 16, spp=2, max_bounces=3, seed=7,
+        sky="black", lights=extract_mesh_lights(mesh),
     )
     dmesh = make_mesh(2, 2, devices=jax.devices()[:4])
     img, rays = render_scene_sharded(
         mesh, MESH_CAM, 32, 16, dmesh, spp=2, max_bounces=3, seed=7,
-        sky="black", backend="pallas", interpret=True, nee=True,
+        sky="black", nee=True,
     )
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(single), atol=1e-5
@@ -700,10 +677,11 @@ def test_sharded_mesh_nee_matches_single_device():
 
 
 def test_mesh_nee_renderer_config():
-    """PathTraceRenderer accepts nee for MeshScene on both backends; a
-    lamp-less mesh fails loudly."""
-    from csgrenderer_tpu.app import PathTraceRenderer
-    from csgrenderer_tpu.utils.config import RenderConfig
+    """PathTraceRenderer accepts nee for MeshScene (plain XLA on every
+    platform; no Triton kernel for meshes); a lamp-less mesh fails
+    loudly."""
+    from csgrenderer.app import PathTraceRenderer
+    from csgrenderer.utils.config import RenderConfig
 
     mesh = small_mesh_night()
     cfg = RenderConfig(width=32, height=16, spp=1, max_bounces=3, seed=1,
@@ -711,13 +689,12 @@ def test_mesh_nee_renderer_config():
     r = PathTraceRenderer(mesh, MESH_CAM, cfg, backend="jnp")
     f = np.asarray(r.draw_frame(0.0))
     assert f.shape == (16, 32, 3)
-    rp = PathTraceRenderer(mesh, MESH_CAM, cfg, backend="pallas",
-                           interpret=True)
-    fp = np.asarray(rp.draw_frame(0.0))
-    assert fp.shape == (16, 32, 3)
+    rp = PathTraceRenderer(mesh, MESH_CAM, cfg, interpret=True)
+    assert rp.backend == "jnp"
+    np.testing.assert_array_equal(np.asarray(rp.draw_frame(0.0)), f)
 
-    from csgrenderer_tpu.render.trimesh import icosphere
-    from csgrenderer_tpu.scene import Material
+    from csgrenderer.render.trimesh import icosphere
+    from csgrenderer.scene import Material
 
     with pytest.raises(ValueError, match="emissive"):
         PathTraceRenderer(
@@ -725,94 +702,3 @@ def test_mesh_nee_renderer_config():
                       Material.lambertian((0.5, 0.5, 0.5)), 3),
             MESH_CAM, cfg, backend="jnp",
         )
-
-def test_mesh_nee_brute_path_matches_jnp():
-    """BRUTE-path mesh NEE (round 3b): ungriddable meshes get the same
-    area-sampled TriLights + MIS estimator with a min-t MT shadow pass —
-    ray-count exact and f32-exact vs the jnp reference (no bf16 tables
-    on the brute path)."""
-    from csgrenderer_tpu.kernels import render_image_mesh_pallas
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
-    from csgrenderer_tpu.render.trimesh import concat_meshes, icosphere, quad
-    from csgrenderer_tpu.scene import Material
-
-    mesh = concat_meshes(
-        icosphere((0, 0.7, -3), 0.7,
-                  Material.lambertian((0.6, 0.3, 0.3)), 1),
-        quad((-0.6, 2.2, -3.4), (0.6, 2.2, -3.4), (0.6, 2.2, -2.4),
-             (-0.6, 2.2, -2.4), Material.emissive((12.0, 10.0, 8.0))),
-    )
-    lights = extract_mesh_lights(mesh)
-    cam = Camera.look_at((0, 1.4, 1.6), (0, 0.6, -3), vfov_degrees=50.0,
-                         aspect_ratio=2.0)
-    ref, rrays = render_image(
-        mesh.nearest_hit, cam, 48, 24, spp=3, max_bounces=4, seed=7,
-        sky="black", lights=lights,
-    )
-    img, krays = render_image_mesh_pallas(
-        mesh, cam, 48, 24, spp=3, max_bounces=4, seed=7, sky="black",
-        interpret=True, worklist=False, nee=True,
-    )
-    assert int(krays) == int(rrays)
-    rmse = float(
-        np.sqrt(np.mean((np.asarray(img) - np.asarray(ref)) ** 2))
-    )
-    assert rmse < 1e-5
-
-
-def test_mesh_nee_many_lamps_table_gather():
-    """n_lights > 8 switches the kernel's lamp pick to the [16, L_pad]
-    VMEM one-hot gather (HIGHEST-precision dot); must stay ray-count
-    exact vs the jnp reference. 80 lamps = an emissive icosphere."""
-    from csgrenderer_tpu.kernels import render_image_mesh_pallas
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
-    from csgrenderer_tpu.render.trimesh import concat_meshes, icosphere, quad
-    from csgrenderer_tpu.scene import Material
-
-    mesh = concat_meshes(
-        icosphere((-0.9, 0.7, -3.0), 0.7,
-                  Material.lambertian((0.6, 0.3, 0.3)), 2),
-        icosphere((0.2, 2.2, -2.6), 0.35,
-                  Material.emissive((14.0, 12.0, 9.0)), 1),
-        quad((-6, 0, -9), (6, 0, -9), (6, 0, 2), (-6, 0, 2),
-             Material.lambertian((0.5, 0.5, 0.5))),
-    )
-    lights = extract_mesh_lights(mesh)
-    assert lights.num_lights == 80
-    ref, rrays = render_image(
-        mesh.nearest_hit, MESH_CAM, 48, 24, spp=2, max_bounces=3, seed=7,
-        sky="black", lights=lights,
-    )
-    img, krays = render_image_mesh_pallas(
-        mesh, MESH_CAM, 48, 24, spp=2, max_bounces=3, seed=7, sky="black",
-        interpret=True, worklist=True, nee=True,
-    )
-    assert int(krays) == int(rrays)
-    bad = (
-        np.abs(np.asarray(img) - np.asarray(ref)).max(axis=-1) > 0.05
-    ).mean()
-    assert bad <= 0.01, f"{bad:.3%} divergent"
-
-
-def test_mesh_nee_stream_worklist_matches_jnp():
-    """NEE shadow segments through the STREAM (demand-paged) gather:
-    the same walk serves path and shadow segments, so stream mode +
-    TriLights must stay ray-count exact vs the jnp reference."""
-    from csgrenderer_tpu.kernels import render_image_mesh_pallas
-    from csgrenderer_tpu.render.lights import extract_mesh_lights
-
-    mesh = small_mesh_night()
-    lights = extract_mesh_lights(mesh)
-    ref, rrays = render_image(
-        mesh.nearest_hit, MESH_CAM, 48, 24, spp=2, max_bounces=3, seed=5,
-        sky="black", lights=lights,
-    )
-    img, krays = render_image_mesh_pallas(
-        mesh, MESH_CAM, 48, 24, spp=2, max_bounces=3, seed=5, sky="black",
-        interpret=True, worklist="stream", nee=True,
-    )
-    assert int(krays) == int(rrays)
-    bad = (
-        np.abs(np.asarray(img) - np.asarray(ref)).max(axis=-1) > 0.05
-    ).mean()
-    assert bad <= 0.01, f"{bad:.3%} divergent"

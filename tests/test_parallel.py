@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.models import two_spheres_scene
-from csgrenderer_tpu.parallel import make_mesh, render_image_sharded
-from csgrenderer_tpu.render import render_image
+from csgrenderer.camera import Camera
+from csgrenderer.models import two_spheres_scene
+from csgrenderer.parallel import make_mesh, render_image_sharded
+from csgrenderer.render import render_image
 
 
 @pytest.fixture(scope="module")
@@ -64,15 +64,15 @@ def test_mesh_validation():
 
 
 def test_pallas_sharded_matches_jnp_sharded(setup):
-    # the production config: Pallas kernels inside shard_map (interpret mode
-    # on the CPU mesh); must reproduce the single-device jnp image
-    from csgrenderer_tpu.parallel import render_scene_sharded
+    # the kernel path: Triton kernels inside shard_map (interpret mode on
+    # the CPU mesh); must reproduce the single-device jnp image
+    from csgrenderer.parallel import render_scene_sharded
 
     scene, cam, ref, ref_rays = setup
     mesh = make_mesh(2, 2, devices=jax.devices()[:4])
     img, rays = render_scene_sharded(
         scene, cam, 64, 32, mesh, spp=8, max_bounces=4, seed=9,
-        backend="pallas", interpret=True,
+        backend="triton", interpret=True,
     )
     img = np.asarray(img)
     assert img.shape == (32, 64, 3)
@@ -84,9 +84,9 @@ def test_pallas_sharded_matches_jnp_sharded(setup):
 
 
 def test_pallas_sharded_tape_scene(setup):
-    from csgrenderer_tpu.models import config3_csg_scene
-    from csgrenderer_tpu.parallel import render_scene_sharded
-    from csgrenderer_tpu.render import render_image, tape_hit_adapter
+    from csgrenderer.models import config3_csg_scene
+    from csgrenderer.parallel import render_scene_sharded
+    from csgrenderer.render import render_image, tape_hit_adapter
     from functools import partial
 
     tape = config3_csg_scene().compile(k=2)
@@ -99,19 +99,20 @@ def test_pallas_sharded_tape_scene(setup):
     mesh = make_mesh(2, 2, devices=jax.devices()[:4])
     img, rays = render_scene_sharded(
         tape, cam, 32, 32, mesh, spp=2, max_bounces=3, seed=3,
-        backend="pallas", interpret=True,
+        backend="triton", interpret=True,
     )
     np.testing.assert_allclose(np.asarray(img), np.asarray(ref), atol=1e-4)
     assert int(rays) == int(ref_rays)
 
 
 def test_pallas_sharded_mesh_scene(setup):
-    """MeshScene through the production sharded path (VERDICT r2 item 1:
-    meshes are framework citizens — same multi-chip machinery as
-    spheres/tapes)."""
-    from csgrenderer_tpu.parallel import render_scene_sharded
-    from csgrenderer_tpu.render import icosphere, quad, render_image
-    from csgrenderer_tpu.scene.graph import Material
+    """MeshScene through render_scene_sharded (VERDICT r2 item 1: meshes
+    are framework citizens — same multi-card machinery as spheres/tapes).
+    Meshes have no kernel, so every backend request that is not an error
+    takes the plain XLA path."""
+    from csgrenderer.parallel import render_scene_sharded
+    from csgrenderer.render import icosphere, quad, render_image
+    from csgrenderer.scene.graph import Material
 
     mesh_scene = icosphere((0, 0, -4), 1.0,
                            Material.lambertian((0.6, 0.3, 0.3)), 1)
@@ -123,21 +124,17 @@ def test_pallas_sharded_mesh_scene(setup):
     mesh = make_mesh(2, 2, devices=jax.devices()[:4])
     img, rays = render_scene_sharded(
         mesh_scene, cam, 64, 32, mesh, spp=2, max_bounces=3, seed=5,
-        backend="pallas", interpret=True,
+        interpret=True,
     )
-    img = np.asarray(img)
     assert img.shape == (32, 64, 3)
-    bad = (np.abs(img - np.asarray(ref)).max(axis=-1) > 0.05).mean()
-    assert bad <= 0.01, f"{bad:.3%} divergent"
-    assert abs(int(rays) - int(ref_rays)) <= max(int(ref_rays) * 2e-3, 8)
+    np.testing.assert_allclose(np.asarray(img), np.asarray(ref), atol=1e-5)
+    assert int(rays) == int(ref_rays)
 
-    # jnp sharded path handles meshes too
-    img2, rays2 = render_scene_sharded(
-        mesh_scene, cam, 64, 32, mesh, spp=2, max_bounces=3, seed=5,
-        backend="jnp",
-    )
-    np.testing.assert_allclose(np.asarray(img2), np.asarray(ref), atol=1e-5)
-    assert int(rays2) == int(ref_rays)
+    with pytest.raises(ValueError, match="no Triton kernel"):
+        render_scene_sharded(
+            mesh_scene, cam, 64, 32, mesh, spp=2, backend="triton",
+            interpret=True,
+        )
 
 
 def test_pallas_vma_checker_still_unsupported():
@@ -178,9 +175,9 @@ def test_render_to_noise_sharded_matches_single_device(setup):
     VERDICT item 5): the sharded accumulation reproduces the single-device
     render_to_noise bit stream, so its measured noise and spp count are
     EXACTLY the single-device ones."""
-    from csgrenderer_tpu.app.renderers import PathTraceRenderer
-    from csgrenderer_tpu.parallel import render_to_noise_sharded
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import PathTraceRenderer
+    from csgrenderer.parallel import render_to_noise_sharded
+    from csgrenderer.utils.config import RenderConfig
 
     scene, cam, _, _ = setup
     cfg = RenderConfig(width=64, height=32, spp=4, max_bounces=4, seed=9)

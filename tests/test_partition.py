@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.kernels import render_image_tape_pallas
-from csgrenderer_tpu.models import config3_csg_scene, many_objects_scene
-from csgrenderer_tpu.render import render_image
-from csgrenderer_tpu.render.integrator import tape_hit_adapter
-from csgrenderer_tpu.scene.graph import Material, NodeArgument as NA, SceneGraph
-from csgrenderer_tpu.scene.partition import partition_tape
+from csgrenderer.camera import Camera
+from csgrenderer.kernels import render_image_tape_pallas
+from csgrenderer.models import config3_csg_scene, many_objects_scene
+from csgrenderer.render import render_image
+from csgrenderer.render.integrator import tape_hit_adapter
+from csgrenderer.scene.graph import Material, NodeArgument as NA, SceneGraph
+from csgrenderer.scene.partition import partition_tape
 
 
 def test_single_object_scene_is_not_partitioned():
@@ -170,9 +170,9 @@ def test_animated_tape_reclusters_per_frame():
     re-clusters per frame on a host-side CPU twin; an unchanged cluster
     tuple is a jit cache hit, a boundary crossing recompiles exactly once,
     and both regimes match the global jnp oracle."""
-    from csgrenderer_tpu.app.renderers import PathTraceRenderer
-    from csgrenderer_tpu.kernels.tape_kernel import _render_tape_packed
-    from csgrenderer_tpu.utils.config import RenderConfig
+    from csgrenderer.app.renderers import PathTraceRenderer
+    from csgrenderer.kernels.tape_kernel import _render_tape_packed
+    from csgrenderer.utils.config import RenderConfig
 
     g = SceneGraph(max_node_count=8)
     a = g.add_sphere_node(0.5, Material.lambertian((0.7, 0.3, 0.3)))
@@ -189,7 +189,7 @@ def test_animated_tape_reclusters_per_frame():
                          aspect_ratio=2.0)
     cfg = RenderConfig(width=32, height=16, spp=2, max_bounces=3, seed=7)
     r = PathTraceRenderer(tape, cam, cfg, animate=animate,
-                          backend="pallas", interpret=True)
+                          backend="triton", interpret=True)
 
     # clustering regimes on the CPU twin
     c0, c1, c2 = r._recluster(0.0), r._recluster(0.1), r._recluster(1.0)
@@ -212,7 +212,7 @@ def test_animated_tape_reclusters_per_frame():
             partial(tape_hit_adapter, anim), cam, 32, 16, spp=2,
             max_bounces=3, seed=7,
         )
-        from csgrenderer_tpu.render import tonemap
+        from csgrenderer.render import tonemap
         ref8 = np.asarray(tonemap.to_uint8(tonemap.tonemap(ref, gamma=2.0)))
         bad = (np.abs(got.astype(int) - ref8.astype(int)).max(axis=-1)
                > 12).mean()

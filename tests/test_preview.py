@@ -6,7 +6,7 @@ import urllib.request
 
 import numpy as np
 
-from csgrenderer_tpu.app.preview import PreviewServer, _encode_frame
+from csgrenderer.app.preview import PreviewServer, _encode_frame
 
 
 def test_encode_frame_roundtrip():

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.math import quaternion as quat
-from csgrenderer_tpu.scene import Material, NodeArgument, SceneGraph
-from csgrenderer_tpu.scene.tape import OP_DIFF, OP_PUSH, OP_UNION
+from csgrenderer.math import quaternion as quat
+from csgrenderer.scene import Material, NodeArgument, SceneGraph
+from csgrenderer.scene.tape import OP_DIFF, OP_PUSH, OP_UNION
 
 
 def test_reference_demo_root_semantics():

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from csgrenderer_tpu.math import quaternion as quat
-from csgrenderer_tpu.scene import Material, NodeArgument, SceneGraph
-from csgrenderer_tpu.render.tape_eval import eval_tape_intervals, tape_nearest_hit
+from csgrenderer.math import quaternion as quat
+from csgrenderer.scene import Material, NodeArgument, SceneGraph
+from csgrenderer.render.tape_eval import eval_tape_intervals, tape_nearest_hit
 
 
 def ray(o, d):

@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.math import quaternion as quat
-from csgrenderer_tpu.render.tape_eval import eval_tape_intervals
-from csgrenderer_tpu.scene import NodeArgument, NodeType, SceneGraph
+from csgrenderer.math import quaternion as quat
+from csgrenderer.render.tape_eval import eval_tape_intervals
+from csgrenderer.scene import NodeArgument, NodeType, SceneGraph
 
 K = 8
 

@@ -1,15 +1,15 @@
-"""CSG tape Pallas kernel vs the jnp tape evaluator (interpret mode)."""
+"""CSG tape Triton kernel vs the jnp tape evaluator (interpret mode)."""
 
 import functools
 
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.kernels.tape_kernel import render_image_tape_pallas
-from csgrenderer_tpu.models import animated_csg_scene, config3_csg_scene
-from csgrenderer_tpu.render import render_image, tape_hit_adapter
-from csgrenderer_tpu.scene import Material, NodeArgument, SceneGraph
+from csgrenderer.camera import Camera
+from csgrenderer.kernels.tape_kernel import render_image_tape_pallas
+from csgrenderer.models import animated_csg_scene, config3_csg_scene
+from csgrenderer.render import render_image, tape_hit_adapter
+from csgrenderer.scene import Material, NodeArgument, SceneGraph
 
 
 def compare(tape, cam, w, h, spp, bounces, seed, sky="rtiow", tol=1e-4):
@@ -45,7 +45,7 @@ def test_deep_csg_matches_reference():
 def test_rotated_leaves_and_materials():
     import numpy as onp
 
-    from csgrenderer_tpu.math import quaternion as quat
+    from csgrenderer.math import quaternion as quat
 
     q = tuple(onp.asarray(quat.from_axis_angle(onp.array([0.0, 1.0, 0.0]), 0.6)))
     g = SceneGraph()
@@ -101,26 +101,50 @@ def test_normal_map_attribution_matches_reference():
     compare(tape, cam, 48, 48, spp=1, bounces=1, seed=3)
 
 
-def test_generalized_merge_network_fuzz():
-    """The odd-even merge network must sort for ALL operand length combos
-    (per-node interval widths make unequal, non-power-of-two merges the
-    common case)."""
-    import itertools
+def _two_leaf_tape(op):
+    g = SceneGraph()
+    a = g.add_sphere_node(1.0, Material.lambertian((0.8, 0.3, 0.3)))
+    b = g.add_box_node((0.6, 0.6, 0.6), Material.metal((0.7, 0.7, 0.7), 0.1))
+    args = (NodeArgument(a), NodeArgument(b, offset=(0.7, 0.3, 0.0)))
+    {
+        "union": g.add_union_of_node,
+        "intersect": g.add_intersection_of_node,
+        "diff": g.add_difference_of_node,
+    }[op](*args)
+    return g.compile(k=4)
 
+
+@pytest.mark.parametrize("op", ["union", "intersect", "diff"])
+def test_event_flip_matches_interval_reference(op):
+    """Event-flip evaluation (the kernel's) == the interval-list reference
+    (render/tape_eval.py) on each CSG op: same nearest t, same hit set,
+    same solid-level entering flag, for rays from all around the solid."""
     import jax.numpy as jnp
 
-    from csgrenderer_tpu.kernels.tape_kernel import _merge_sorted_planes
+    from csgrenderer.kernels.tape_kernel import (
+        LEAF_ROW, T_FAR, event_flip, pack_leaves,
+    )
+    from csgrenderer.render.tape_eval import tape_nearest_hit
 
-    rng = np.random.default_rng(11)
-    # k=4 tapes produce 7/8-length event merges in _combine; cover
-    # through length 8 on both operands (advisor round-2 finding)
-    for la, lb in itertools.product(range(0, 9), range(0, 9)):
-        for _ in range(20):
-            a = np.sort(rng.integers(0, 15, la)).astype(np.float32)
-            b = np.sort(rng.integers(0, 15, lb)).astype(np.float32)
-            got = _merge_sorted_planes(
-                [jnp.full((1, 1), v) for v in a],
-                [jnp.full((1, 1), v) for v in b],
-            )
-            got = [float(np.asarray(p)[0, 0]) for p in got]
-            assert got == sorted(a.tolist() + b.tolist())
+    tape = _two_leaf_tape(op)
+    rng = np.random.default_rng(3)
+    n = 512
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = (rng.normal(size=(n, 3)) * 0.3 - o / 3.0).astype(np.float32)
+    tab = pack_leaves(tape)
+
+    t, entering = event_flip(
+        tape.ops, tape.leaf_types, lambda l, j: tab[l * LEAF_ROW + j],
+        tuple(jnp.asarray(o[:, k]) for k in range(3)),
+        tuple(jnp.asarray(d[:, k]) for k in range(3)),
+    )
+    t, entering = np.asarray(t), np.asarray(entering)
+    ref = tape_nearest_hit(tape, jnp.asarray(o), jnp.asarray(d), eps=1e-3)
+    hit = t < T_FAR
+    np.testing.assert_array_equal(hit, np.asarray(ref.hit))
+    assert hit.mean() > 0.2  # the rays really exercise the solid
+    np.testing.assert_allclose(t[hit], np.asarray(ref.t)[hit], rtol=1e-5)
+    np.testing.assert_array_equal(
+        entering[hit] > 0, np.asarray(ref.entering)[hit]
+    )

@@ -1,21 +1,11 @@
-"""Triangle meshes: Möller-Trumbore geometry, OBJ IO, kernel parity."""
+"""Triangle meshes: Möller-Trumbore geometry and OBJ IO."""
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from csgrenderer_tpu.camera import Camera
-from csgrenderer_tpu.io import obj as obj_io
-from csgrenderer_tpu.kernels import render_image_mesh_pallas
-from csgrenderer_tpu.render import render_image
-from csgrenderer_tpu.render.trimesh import (
-    MeshScene,
-    concat_meshes,
-    icosphere,
-    make_mesh,
-    quad,
-)
-from csgrenderer_tpu.scene import Material
+from csgrenderer.io import obj as obj_io
+from csgrenderer.render.trimesh import icosphere, make_mesh
+from csgrenderer.scene import Material
 
 
 def test_single_triangle_hit_and_miss():
@@ -83,42 +73,3 @@ def test_obj_polygon_fan_and_negative_indices(tmp_path):
     )
     verts, faces = obj_io.read_obj(p)
     assert len(verts) == 4 and len(faces) == 3  # 2 from the fan + 1
-
-
-def test_mesh_kernel_matches_reference():
-    scene = concat_meshes(
-        icosphere((0, 0.8, -3), 0.8, Material.metal((0.9, 0.8, 0.6), 0.1), 1),
-        quad((-4, 0, -7), (4, 0, -7), (4, 0, 1), (-4, 0, 1),
-             Material.lambertian((0.4, 0.6, 0.4))),
-    )
-    cam = Camera.look_at((0, 1.2, 1.5), (0, 0.6, -3), vfov_degrees=50.0,
-                         aspect_ratio=2.0)
-    ref, rrays = render_image(
-        scene.nearest_hit, cam, 64, 32, spp=2, max_bounces=5, seed=2
-    )
-    img, krays = render_image_mesh_pallas(
-        scene, cam, 64, 32, spp=2, max_bounces=5, seed=2, interpret=True
-    )
-    rmse = float(np.sqrt(np.mean((np.asarray(ref) - np.asarray(img)) ** 2)))
-    assert rmse <= 2e-2, rmse
-    assert abs(int(krays) - int(rrays)) <= max(8, 0.01 * int(rrays))
-
-
-def test_mesh_kernel_sharding_slab():
-    """rows/row_offset slabs compose to the full image (mesh kernel)."""
-    mesh = icosphere((0, 0, -4), 1.0, Material.lambertian((0.6, 0.3, 0.3)), 1)
-    cam = Camera.look_at((0, 0, 0), (0, 0, -4), vfov_degrees=45.0,
-                         aspect_ratio=2.0)
-    full, _ = render_image_mesh_pallas(
-        mesh, cam, 64, 32, spp=1, max_bounces=3, seed=1, interpret=True
-    )
-    top, _ = render_image_mesh_pallas(
-        mesh, cam, 64, 32, spp=1, max_bounces=3, seed=1, interpret=True,
-        rows=16, row_offset=0,
-    )
-    bot, _ = render_image_mesh_pallas(
-        mesh, cam, 64, 32, spp=1, max_bounces=3, seed=1, interpret=True,
-        rows=16, row_offset=16,
-    )
-    stitched = np.concatenate([np.asarray(top), np.asarray(bot)], axis=0)
-    np.testing.assert_allclose(stitched, np.asarray(full), atol=1e-6)

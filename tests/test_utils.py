@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csgrenderer_tpu.io import video
-from csgrenderer_tpu.utils import (
+from csgrenderer.io import video
+from csgrenderer.utils import (
     MeshConfig,
     RenderConfig,
     disable_debug_mode,
     enable_debug_mode,
     get_logger,
 )
-from csgrenderer_tpu.utils.profiling import Timing, time_fn
+from csgrenderer.utils.profiling import Timing, time_fn
 
 
 def test_render_config_validation():
@@ -106,7 +106,7 @@ def test_gif_rejects_empty_and_mismatched(tmp_path):
 
 
 def test_checked_wrapper_passes_clean_fn():
-    from csgrenderer_tpu.utils.config import checked
+    from csgrenderer.utils.config import checked
 
     f = checked(lambda x: jnp.sqrt(x) + 1.0)
     np.testing.assert_allclose(np.asarray(f(jnp.float32(4.0))), 3.0)
@@ -115,7 +115,7 @@ def test_checked_wrapper_passes_clean_fn():
 def test_checked_wrapper_catches_nan():
     from jax.experimental import checkify
 
-    from csgrenderer_tpu.utils.config import checked
+    from csgrenderer.utils.config import checked
 
     f = checked(lambda x: jnp.sqrt(x))  # sqrt(-1) -> NaN
     with pytest.raises((checkify.JaxRuntimeError, ValueError)):
@@ -125,10 +125,10 @@ def test_checked_wrapper_catches_nan():
 def test_checked_render_step_is_clean():
     # the reference-implementation render path must be NaN/div-free under
     # full float checks (the 'validation layer' smoke test)
-    from csgrenderer_tpu.camera import Camera
-    from csgrenderer_tpu.models import two_spheres_scene
-    from csgrenderer_tpu.render import render_image
-    from csgrenderer_tpu.utils.config import checked
+    from csgrenderer.camera import Camera
+    from csgrenderer.models import two_spheres_scene
+    from csgrenderer.render import render_image
+    from csgrenderer.utils.config import checked
 
     scene = two_spheres_scene()
     cam = Camera.look_at((0, 0, 0), (0, 0, -1), vfov_degrees=90,

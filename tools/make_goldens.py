@@ -2,9 +2,11 @@
 
 Scaled-down versions of the five BASELINE.json configs — small enough for CI,
 same code paths as the full-resolution demos. Goldens are produced by OUR
-reference (pure-jnp) implementation: the GLSL original isn't runnable here
-(SURVEY §7 hard part #5), so these renders define the expected images, and
-the Pallas/distributed paths are validated against them.
+reference (pure-jnp) implementation on the CPU: the GLSL original isn't
+runnable here (SURVEY §7 hard part #5), so these renders define the
+expected images. ``golden_specs`` renders through the normal path of
+whatever backend is active: chip_smoke.py compares the card's kernels
+with the goldens through it.
 
 Run: python tools/make_goldens.py
 """
@@ -14,22 +16,18 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np  # noqa: E402
 
-from csgrenderer_tpu.app.renderers import PathTraceRenderer, WololoRenderer  # noqa: E402
-from csgrenderer_tpu.camera import Camera  # noqa: E402
-from csgrenderer_tpu.io import image  # noqa: E402
-from csgrenderer_tpu.models import (  # noqa: E402
+from csgrenderer.app.renderers import PathTraceRenderer, WololoRenderer  # noqa: E402
+from csgrenderer.camera import Camera  # noqa: E402
+from csgrenderer.io import image  # noqa: E402
+from csgrenderer.models import (  # noqa: E402
     animated_csg_scene,
     config3_csg_scene,
     rtiow_final_scene,
     two_spheres_scene,
 )
-from csgrenderer_tpu.utils.config import RenderConfig  # noqa: E402
+from csgrenderer.utils.config import RenderConfig  # noqa: E402
 
 GOLDEN_DIR = pathlib.Path(__file__).resolve().parent.parent / "tests" / "goldens"
 
@@ -92,7 +90,7 @@ def golden_specs():
         # mesh NEE (round 3b): emissive-face TriLights + MIS on the jnp
         # reference — the image-level regression net for the mesh-lamp
         # estimator (kernel parity is asserted separately in test_nee.py)
-        from csgrenderer_tpu.models import mesh_night_scene
+        from csgrenderer.models import mesh_night_scene
 
         cam = Camera.look_at(
             (0, 1.8, 2.4), (0, 0.7, -2.6), vfov_degrees=45.0,
@@ -117,6 +115,9 @@ def golden_specs():
 
 
 def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     GOLDEN_DIR.mkdir(parents=True, exist_ok=True)
     for name, fn in golden_specs().items():
         img = fn()
